@@ -1,37 +1,28 @@
-"""Benchmark ladder (BASELINE.md configs) on the chip.
+"""Benchmark ladder (BASELINE.md configs) on the accelerator.
 
-Prints ONE JSON line. `metric`/`value`/`unit`/`vs_baseline` track the
-headline number (cbox 512^2 d8 path-tracing throughput, relative to the
-round-1 first measurement); `extra` carries the other rungs:
+Prints ONE JSON line. `metric`/`value`/`unit` track the headline number
+(cbox 512^2 d8 path-tracing throughput); `device` names the device and the
+card's power limit; `extra` carries the other rungs:
 
-  - staircase_512_d4_mrays: 262k-tri mesh through the packet BVH
-  - staircase_sol_mrays:    speed-of-light bound for that rung — the bare
-    packet traversal on tile-coherent primary rays (the full PT number
-    divided by this is the incoherence+shading tax, not kernel headroom)
+  - staircase_512_d4_mrays: 262k-tri mesh through the BVH route
   - prism_hero_256_mrays:   hero-wavelength dispersion scene
   - cbox_256_d4_grad_mrays: forward+backward (inverse-rendering grad step);
     rays counted are forward-traced rays, time includes the backward sweep
   - staircase_grad_mrays:   the same fwd+bwd metric on a BVH scene
-  - kitchen_1M_mrays:       million-triangle scene (adaptive-leaf bricks)
+  - kitchen_1M_mrays:       million-triangle scene
   - classroom_rt_ms:        one real-time frame (ReSTIR DI+GI + SHARC +
     SVGF) on classroom 512^2 (BASELINE config 5)
 
 Rays counted are actual traced rays (closest + shadow, active lanes only)
-from the integrator's on-device counter. Note: the headline runs ~2%
-below its round-3 peak because geometry matmuls are pinned to exact f32
-(jax_default_matmul_precision=highest) — bf16-truncated positions cost an
-11% energy error on cbox (see vision_tpu/__init__.py); the precision is
-worth the 2%.
+from the integrator's on-device counter.
 """
 import json
 import os
+import subprocess
 import time
 
 import jax
 import jax.numpy as jnp
-
-# round-1 first-light measurement on TPU v5e (this repo, commit d0d11ba era)
-BASELINE_MRAYS = 1.933
 
 RES = 512
 DEPTH = 8
@@ -85,8 +76,6 @@ def bench_staircase():
     sc.raw["camera"]["param"]["radiance_collector"]["param"][
         "resolution"] = [RES, RES]
     sc = Scene(sc.raw, scene_dir=sc.scene_dir)
-    if sc.data.pbvh is None:
-        return None
     return _wave_metric(sc, spp=2, depth=4, warmup=1, iters=2)
 
 
@@ -150,34 +139,6 @@ def bench_grad():
     return nrays / dt / 1e6
 
 
-def bench_staircase_sol():
-    """Speed-of-light for the staircase rung: bare packet traversal on
-    tile-coherent primaries (no shading, no NEE, no bounce incoherence)."""
-    from vision_tpu.scene.scene import Scene
-    from vision_tpu.accel.packet_bvh import intersect_packet
-    from vision_tpu.integrator.pt import _tile_order
-    path = os.path.join(REF, "staircase/vision_scene.json")
-    if not os.path.exists(path):
-        return None
-    sc = Scene(path)
-    if sc.data.pbvh is None:
-        return None
-    R = RES * RES
-    pix = jnp.asarray(_tile_order(RES, RES))
-    px = (pix % RES).astype(jnp.float32)
-    py = (pix // RES).astype(jnp.float32)
-    ray = sc.camera.generate_ray(
-        jnp.stack([px + 0.5, py + 0.5], -1), jnp.zeros((R, 2)))
-    f = jax.jit(lambda pb, r: intersect_packet(r, pb).t)
-    out = f(sc.data.pbvh, ray)
-    out.block_until_ready()
-    t0 = time.perf_counter()
-    for _ in range(4):
-        out = f(sc.data.pbvh, ray)
-    out.block_until_ready()
-    return R * 4 / (time.perf_counter() - t0) / 1e6
-
-
 def bench_staircase_grad():
     """Forward+backward on a BVH scene: grad of an L2 loss w.r.t. material
     floats through the remat'd wavefront on staircase 256^2 depth 2."""
@@ -191,8 +152,6 @@ def bench_staircase_grad():
     sc.raw["camera"]["param"]["radiance_collector"]["param"][
         "resolution"] = [256, 256]
     sc = Scene(sc.raw, scene_dir=sc.scene_dir)
-    if sc.data.pbvh is None:
-        return None
     W, H = sc.camera.resolution
     R = W * H
     pix = jnp.arange(R, dtype=jnp.uint32)
@@ -225,7 +184,7 @@ def bench_staircase_grad():
 
 def bench_kitchen():
     """Million-triangle scene (kitchen, 1.05M tris): full PT through the
-    adaptive-leaf packet BVH (bsize grows to keep node arrays in SMEM)."""
+    BVH route."""
     from vision_tpu.scene.scene import Scene
     path = os.path.join(REF, "kitchen/vision_scene.json")
     if not os.path.exists(path):
@@ -234,8 +193,6 @@ def bench_kitchen():
     sc.raw["camera"]["param"]["radiance_collector"]["param"][
         "resolution"] = [RES, RES]
     sc = Scene(sc.raw, scene_dir=sc.scene_dir)
-    if sc.data.pbvh is None:
-        return None
     return _wave_metric(sc, spp=1, depth=3, warmup=1, iters=2)
 
 
@@ -269,16 +226,27 @@ def bench_classroom_rt():
     return (time.perf_counter() - t0) / n * 1e3
 
 
+def _device():
+    d = jax.devices()[0]
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        smi = None
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices()), "name_power_limit": smi}
+
+
 def main():
     out = {}
     mrays = bench_cbox()
     out["metric"] = "cbox_512_d8_pt_throughput"
     out["value"] = round(mrays, 3)
     out["unit"] = "Mrays/s"
-    out["vs_baseline"] = round(mrays / BASELINE_MRAYS, 3)
+    out["device"] = _device()
     extra = {}
     for name, fn in [("staircase_512_d4_mrays", bench_staircase),
-                     ("staircase_sol_mrays", bench_staircase_sol),
                      ("prism_hero_256_mrays", bench_prism),
                      ("cbox_256_d4_grad_mrays", bench_grad),
                      ("staircase_grad_mrays", bench_staircase_grad),

@@ -1,11 +1,11 @@
-// Binned-SAH BVH builder (host-side, TPU-traversal oriented).
+// Binned-SAH BVH builder (host side).
 //
 // Replaces the device-side OptiX BLAS build the reference delegates to
-// (`/root/reference/src/base/mgr/geometry.cpp:36-53`): here the hierarchy is
-// built once on host in C++ and shipped to the chip as flat arrays that a
-// per-lane XLA gather walk consumes (see vision_tpu/accel/sah.py).
+// (reference `src/base/mgr/geometry.cpp:36-53`): the hierarchy is built
+// once on the host in C++ and shipped to the device as flat arrays that the
+// GPU traversal kernel walks (native/trace.cu, vision_tpu/accel/sah.py).
 //
-// Output layout (DFS order, stackless skip-link traversal):
+// Output layout (DFS preorder):
 //   nodes: lo[3] hi[3] (f32), first (i32: child id if inner, tri start if
 //   leaf), count (i32: 0 inner, else #tris), skip (i32 DFS miss link, -1 end),
 //   axis (i32: split axis 0/1/2 for inner nodes, -1 for leaves)
@@ -14,14 +14,13 @@
 // Standard binned SAH: 16 bins on the centroid extent's longest axis,
 // leaf <= max_leaf prims, full-sweep SAH cost with surface-area heuristic.
 //
-// Two invariants the Pallas packet traversal relies on
-// (vision_tpu/accel/packet_bvh.py):
+// Two invariants the traversal relies on:
 //   * the LEFT child always covers the LOWER side of the split axis, so a
-//     ray block whose direction is positive along `axis` traverses
-//     front-to-back by visiting left first (and right first otherwise);
+//     ray whose direction is positive along `axis` traverses front-to-back
+//     by visiting left first (and right first otherwise);
 //   * tree depth is bounded (< kMaxDepth + log2(n)): past kMaxDepth the
-//     builder forces median splits, so the kernel's fixed SMEM stack
-//     cannot overflow.
+//     builder forces median splits, so the kernel's fixed stack cannot
+//     overflow.
 
 #include <algorithm>
 #include <cmath>
@@ -132,8 +131,8 @@ struct Builder {
       }
     }
     if (best_b < 0 || best_cost >= box.area() * n) {
-      // SAH prefers a leaf, but the fixed max_leaf-slot leaf layout forbids
-      // oversized leaves: fall back to a (spatially ordered) median split.
+      // SAH prefers a leaf, but leaves hold at most max_leaf prims: fall
+      // back to a (spatially ordered) median split.
       return median(begin, end, axis);
     }
     auto it = std::partition(
@@ -258,31 +257,6 @@ int64_t vt_build_bvh(const float* p0, const float* p1, const float* p2,
     boxes[i].grow(&p0[3 * i]);
     boxes[i].grow(&p1[3 * i]);
     boxes[i].grow(&p2[3 * i]);
-    for (int c = 0; c < 3; ++c)
-      cent[3 * i + c] = (boxes[i].lo[c] + boxes[i].hi[c]) * 0.5f;
-  }
-  Builder b;
-  b.prim_box = boxes.data();
-  b.cent = cent.data();
-  b.max_leaf = std::max(1, (int)max_leaf);
-  return run_build(b, n, out_lo, out_hi, out_first, out_count, out_skip,
-                   out_order, out_axis);
-}
-
-// Same tree over pre-computed AABBs (lo/hi [n*3]) — used for the TLAS over
-// instance bounds (reference: OptiX TLAS, `base/mgr/geometry.cpp:36-53`;
-// instances per `base/shape.h:21-33`).
-int64_t vt_build_bvh_boxes(const float* lo, const float* hi, int64_t n,
-                           int32_t max_leaf, float* out_lo, float* out_hi,
-                           int32_t* out_first, int32_t* out_count,
-                           int32_t* out_skip, int32_t* out_order,
-                           int32_t* out_axis) {
-  if (n <= 0) return 0;
-  std::vector<AABB> boxes(n);
-  std::vector<float> cent(3 * n);
-  for (int64_t i = 0; i < n; ++i) {
-    boxes[i].grow(&lo[3 * i]);
-    boxes[i].grow(&hi[3 * i]);
     for (int c = 0; c < 3; ++c)
       cent[3 * i + c] = (boxes[i].lo[c] + boxes[i].hi[c]) * 0.5f;
   }

@@ -1,11 +1,12 @@
 // Native host runtime: fast mesh IO + BVH build primitives.
 //
-// The reference's native layer is ocarina's C++ runtime; the TPU compute
-// path is JAX/Pallas, but host-side asset loading and accel-build remain
-// native for speed (multi-hundred-MB OBJ scenes parse ~20x faster than
-// Python). Exposed as a C ABI consumed via ctypes (vision_tpu/native.py).
+// The reference's native layer is ocarina's C++ runtime; the device
+// compute path is JAX (plus native/trace.cu), but host-side asset loading
+// and accel-build remain native for speed (multi-hundred-MB OBJ scenes
+// parse ~20x faster than Python). Exposed as a C ABI consumed via ctypes
+// (vision_tpu/native.py).
 //
-// Build: make -C native   (g++ -O3 -march=native -shared -fPIC)
+// Build: make -C native   (g++ -O3 -shared -fPIC, into native/build/)
 
 #include <cstdint>
 #include <cstdio>

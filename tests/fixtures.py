@@ -99,3 +99,81 @@ def make_glass_cbox():
     s["shapes"][5]["param"]["material"] = "Glass"
     s["shapes"][6]["param"]["material"] = "Mirror"
     return s
+
+
+def _sphere(name, radius, sub_div, pos, rot_y=0.0, material="White"):
+    import math
+    c, s = math.cos(rot_y), math.sin(rot_y)
+    # row-vector convention: rotation about y, translation in the 4th row
+    m = [[c, 0, -s, 0], [0, 1, 0, 0], [s, 0, c, 0], list(pos) + [1]]
+    return {"type": "sphere", "name": name,
+            "param": {"radius": radius, "sub_div": sub_div,
+                      "material": material,
+                      "transform": {"type": "matrix4x4",
+                                    "param": {"matrix4x4": m}}}}
+
+
+def make_sphere_cbox(sub_div=256, res=512):
+    """cbox plus one lat-long sphere of about 4 * sub_div^2 triangles
+    floating above the short box (sub_div=256: ~262k triangles, a BVH
+    scene of the size of a furnished interior)."""
+    import copy
+    s = copy.deepcopy(CBOX_JSON)
+    s["shapes"].append(_sphere("sphere", 0.3, sub_div, (0.35, 1.05, 0.35)))
+    s["camera"]["param"]["radiance_collector"]["param"]["resolution"] = \
+        [res, res]
+    return s
+
+
+def make_repeated_cbox(n=4, sub_div=128, res=128):
+    """cbox plus `n` copies of one sphere mesh (one geometry key, placed by
+    per-shape transforms, some rotated)."""
+    import copy
+    spots = [(-0.55, 1.45, 0.3), (0.55, 1.45, -0.3), (0.0, 1.25, 0.55),
+             (0.4, 0.95, 0.45), (-0.5, 0.35, 0.55), (0.6, 0.35, -0.6)]
+    s = copy.deepcopy(CBOX_JSON)
+    for i in range(n):
+        s["shapes"].append(_sphere(f"sphere{i}", 0.2, sub_div, spots[i],
+                                   rot_y=0.6 * (i % 2)))
+    s["camera"]["param"]["radiance_collector"]["param"]["resolution"] = \
+        [res, res]
+    return s
+
+
+def _write_ply(path, mesh):
+    import numpy as np
+    P, N, UV, T = mesh.positions, mesh.normals, mesh.uvs, mesh.triangles
+    head = (f"ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {len(P)}\n"
+            + "".join(f"property float {c}\n"
+                      for c in ("x", "y", "z", "nx", "ny", "nz", "u", "v"))
+            + f"element face {len(T)}\n"
+            "property list uchar int vertex_indices\nend_header\n")
+    verts = np.concatenate([P, N, UV], 1).astype("<f4")
+    faces = np.zeros(len(T), [("n", "u1"), ("i", "<i4", (3,))])
+    faces["n"] = 3
+    faces["i"] = T
+    with open(path, "wb") as f:
+        f.write(head.encode() + verts.tobytes() + faces.tobytes())
+
+
+def flatten_by_hand(scene, out_dir):
+    """The same scene with every sphere replaced by a world-space PLY model
+    (identity transform): the repeated meshes placed by hand. Returns the
+    new scene dict; the models are written to `out_dir`."""
+    import copy
+    import os
+    from vision_tpu.core import transform as xf
+    from vision_tpu.scene import shapes as shp
+    s = copy.deepcopy(scene)
+    for k, sh in enumerate(s["shapes"]):
+        if sh["type"] != "sphere":
+            continue
+        p = sh["param"]
+        world = shp.make_shape("sphere", p).transformed(
+            xf.from_json(p["transform"]))
+        fn = f"placed_{k}.ply"
+        _write_ply(os.path.join(out_dir, fn), world)
+        s["shapes"][k] = {"type": "model", "name": sh.get("name"),
+                          "param": {"fn": fn, "material": p["material"]}}
+    return s

@@ -64,7 +64,8 @@ class TestBVH:
         ray = random_rays(400)
         hb = isect.intersect_brute(ray, jnp.asarray(p0), jnp.asarray(e1),
                                    jnp.asarray(e2))
-        hv = isect.intersect_bvh(ray, bvh)
+        hv, truncated = isect.intersect_bvh(ray, bvh)
+        assert int(truncated) == 0
         tb = np.asarray(hb.t)
         tv = np.asarray(hv.t)
         same_hit = np.asarray(hb.prim_id >= 0) == np.asarray(hv.prim_id >= 0)
@@ -83,5 +84,17 @@ class TestBVH:
         ray = random_rays(300, seed=4)
         occ_b = np.asarray(isect.occluded_brute(
             ray, jnp.asarray(p0), jnp.asarray(e1), jnp.asarray(e2)))
-        occ_v = np.asarray(isect.intersect_bvh(ray, bvh, any_hit=True).prim_id >= 0)
-        assert (occ_b == occ_v).all()
+        hv, truncated = isect.intersect_bvh(ray, bvh, any_hit=True)
+        assert int(truncated) == 0
+        assert (occ_b == np.asarray(hv.prim_id >= 0)).all()
+
+    def test_step_bound_counts_truncated_lanes(self):
+        p0, e1, e2 = random_tri_soup(300, seed=5)
+        verts = np.stack([p0, p0 + e1, p0 + e2], 1).reshape(-1, 3)
+        bvh = build_bvh(verts, np.arange(300 * 3).reshape(300, 3))
+        ray = random_rays(64, seed=6)
+        _, full = isect.intersect_bvh(ray, bvh)
+        _, cut = isect.intersect_bvh(ray, bvh, max_steps=2)
+        assert int(full) == 0
+        # every ray that enters the root walks more than two steps
+        assert 0 < int(cut) <= 64

@@ -5,8 +5,8 @@ of the per-depth image means pins the whole energy chain (camera rays,
 NEE + MIS, BSDF sampling throughput, emission sidedness, visibility).
 This is the verification layer SURVEY.md §4 says the reference lacks.
 
-History: this referee caught an 11% TPU-only energy loss (bf16-truncated
-one-hot row fetches quantizing geometry) and itself initially
+History: this referee caught an 11% energy loss from bf16-truncated
+one-hot row fetches quantizing geometry, and itself initially
 double-counted back-side emission of the one-sided light — both renderers
 now agree to MC noise at every depth.
 """

@@ -1,6 +1,6 @@
-"""Render the gallery + parity artifacts on the TPU.
+"""Render the gallery + parity artifacts on the GPU.
 
-Produces gallery/*.png, a CPU-vs-TPU consistency check (BASELINE.md
+Produces gallery/*.png, a CPU-vs-GPU consistency check (BASELINE.md
 'match CPU reference' criterion), and a PSNR comparison against the
 reference's own 20000spp golden render of the cornell box.
 """
@@ -54,33 +54,29 @@ def main():
     import copy
     s = copy.deepcopy(CBOX_JSON)
     s["camera"]["param"]["radiance_collector"]["param"]["resolution"] = [512, 512]
-    sc, hdr_tpu, _ = do("cbox_512_256spp", s, 256)
+    sc, _, _ = do("cbox_512_256spp", s, 256)
 
-    # CPU-vs-TPU consistency (few-spp, identical RNG)
+    # CPU-vs-GPU consistency (few-spp, identical RNG)
     from vision_tpu.render import _render_pass
     img_t, _ = _render_pass(sc.data, sc.camera, sc.filter, jnp.uint32(0),
                             sc.max_depth, sc.min_depth, jnp.float32(1.0))
     img_t = np.asarray(img_t)
     cpu = jax.devices("cpu")[0]
-    os.environ["VT_USE_PALLAS_ISECT"] = "0"  # pallas can't lower on CPU
-    try:
-        with jax.default_device(cpu):
-            sc_cpu = Scene(s)
-            img_c, _ = _render_pass(sc_cpu.data, sc_cpu.camera,
-                                    sc_cpu.filter, jnp.uint32(0),
-                                    sc_cpu.max_depth, sc_cpu.min_depth,
-                                    jnp.float32(1.0))
-            img_c = np.asarray(img_c)
-    finally:
-        del os.environ["VT_USE_PALLAS_ISECT"]
+    with jax.default_device(cpu):
+        sc_cpu = Scene(s)
+        img_c, _ = _render_pass(sc_cpu.data, sc_cpu.camera,
+                                sc_cpu.filter, jnp.uint32(0),
+                                sc_cpu.max_depth, sc_cpu.min_depth,
+                                jnp.float32(1.0))
+        img_c = np.asarray(img_c)
     diff = np.abs(img_t - img_c)
     frac_close = float((diff < 1e-3).mean())
-    report["cpu_tpu_consistency"] = {
+    report["cpu_gpu_consistency"] = {
         "frac_within_1e-3": round(frac_close, 4),
         "frac_within_1e-2": round(float((diff < 1e-2).mean()), 4),
         "median_absdiff": float(np.median(diff)),
     }
-    print(f"[parity] CPU-vs-TPU 1spp: {frac_close:.3f} of values within 1e-3",
+    print(f"[parity] CPU-vs-GPU 1spp: {frac_close:.3f} of values within 1e-3",
           flush=True)
 
     # 2. glass + mirror cornell (ladder config 2: BVH-free dielectrics)

@@ -1,5 +1,4 @@
-"""Compare render_sample-loop vs render_wave (regeneration pool) throughput,
-and sweep the Pallas isect RT block size."""
+"""Compare render_sample-loop vs render_wave (regeneration pool) throughput."""
 import sys
 import time
 

@@ -19,7 +19,7 @@ gathers + compares per step.
 from __future__ import annotations
 
 import numpy as np
-from flax import struct
+from ..core import struct
 import jax.numpy as jnp
 
 LEAF_SIZE = 4

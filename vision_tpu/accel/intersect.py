@@ -1,23 +1,30 @@
-"""Ray-scene intersection: brute-force dense sweep + stackless BVH traversal.
+"""Ray-scene intersection: the traversal routes and the router between them.
 
 Replaces OptiX `trace_closest`/`trace_occlusion` (`/root/reference/src/base/
-mgr/geometry.cpp:168-185`). Two strategies:
+mgr/geometry.cpp:168-185`). Three routes:
 
-  * brute force — blocks of triangles tested against all rays as dense
-    [R, B] Möller-Trumbore; pure VPU work, optimal for small scenes
-    (no gathers, fully fused by XLA);
-  * BVH — per-lane skip-link DFS in a single `lax.while_loop` over all
-    lanes (see bvh.py for the layout rationale).
+  * brute — blocks of triangles tested against all rays as dense [R, B]
+    Möller-Trumbore; XLA fuses the test chain into the min/any reduction.
+    Scenes of at most BRUTE_FORCE_MAX_TRIS triangles (no BVH) take it on
+    the CPU; on the GPU the same sweep runs as a Pallas-Triton kernel
+    (sweep_triton.py, route 'triton').
+  * bvh — per-lane skip-link DFS over the Morton LBVH in one
+    `lax.while_loop` over all lanes (see bvh.py). BVH scenes take it on
+    the CPU.
+  * cuda — one thread per ray over the binned-SAH tree (cuda_trace.py,
+    native/trace.cu). BVH scenes take it on the GPU.
 
-Both return Hit(t, prim_id, bary). prim_id indexes the *original* triangle
-array.
+`trace` picks the route and applies the gradient rule shared by all three:
+no cotangent flows into traversal; t and the barycentrics are recomputed
+differentiably from the winning prim_id (`recompute_hit`). prim_id indexes
+the *original* triangle array.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from ..core.types import Hit
+from ..core.types import Hit, Ray
 from .bvh import LEAF_SIZE
 
 _EPS = 1e-9
@@ -28,9 +35,7 @@ def _mt_batch(o, d, p0, e1, e2):
     broadcastable. Returns (t, u, v, hit_mask) each [R, B].
 
     Component-separated math: every intermediate is an [R, B] array (the
-    trailing axis is the triangle batch, padded to the 128-lane dim), never
-    an [R, B, 3] — a vec3 trailing axis uses 3/128 VPU lanes and measured
-    ~12x slower on v5e.
+    trailing axis is the triangle batch), never an [R, B, 3].
     """
     def comp(a):
         return a[..., 0], a[..., 1], a[..., 2]
@@ -58,7 +63,8 @@ def _mt_batch(o, d, p0, e1, e2):
     qvz = tvx * e1y - tvy * e1x
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-    # 1e-6 barycentric slack closes shared-edge cracks (packet_bvh._mt_scr)
+    # 1e-6 barycentric slack closes shared-edge cracks (rays exactly on a
+    # shared edge round to v ~ -1e-17 in one triangle and would miss both)
     ok = ((jnp.abs(det) > _EPS) & (u >= -1e-6) & (v >= -1e-6)
           & (u + v <= 1.0 + 1e-6) & (t > 0.0))
     return t, u, v, ok
@@ -75,15 +81,14 @@ def _pad_tris(tri_p0, tri_e1, tri_e2, block):
     return tri_p0, tri_e1, tri_e2
 
 
-def recompute_bary(ray, hit, tri_p0, tri_e1, tri_e2):
-    """Per-ray barycentrics for an already-found prim: one [R]-wide MT redo.
+def recompute_hit(ray, prim_id, tri_p0, tri_e1, tri_e2):
+    """Hit(t, prim_id, bary) for an already-found prim: one [R]-wide MT
+    redo, differentiable in the ray and the triangle. Misses keep
+    t = ray.t_max and bary = 0.
 
     Keeping u/v out of the sweep lets XLA fuse the whole [R, B] test chain
-    into the (t, id) min-reduction instead of materializing u/v planes in
-    HBM (measured 2.3x on the occlusion-only variant of the old sweep)."""
-    pid = jnp.maximum(hit.prim_id, 0)
-    # component-form gathers: nine [T]-array gathers are ~5x faster on TPU
-    # than three [T, 3] row gathers (vec3 rows use 3/128 lanes)
+    into the (t, id) min-reduction instead of materializing u/v planes."""
+    pid = jnp.maximum(prim_id, 0)
     p0x, p0y, p0z = (tri_p0[:, i][pid] for i in range(3))
     e1x, e1y, e1z = (tri_e1[:, i][pid] for i in range(3))
     e2x, e2y, e2z = (tri_e2[:, i][pid] for i in range(3))
@@ -102,17 +107,18 @@ def recompute_bary(ray, hit, tri_p0, tri_e1, tri_e2):
     qvy = tvz * e1x - tvx * e1z
     qvz = tvx * e1y - tvy * e1x
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-    uv = jnp.stack([u, v], -1)
-    return jnp.where((hit.prim_id >= 0)[..., None], uv, 0.0)
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    hit = prim_id >= 0
+    uv = jnp.where(hit[..., None], jnp.stack([u, v], -1), 0.0)
+    return Hit(t=jnp.where(hit, t, ray.t_max), prim_id=prim_id, bary=uv)
 
 
 def intersect_brute(ray, tri_p0, tri_e1, tri_e2, block=128):
     """Closest hit by dense sweep. ray fields [R,...]; tris [T,...].
 
     The sweep carries only (best_t, best_id); barycentrics are recomputed
-    for the single winning triangle afterwards (see recompute_bary). Blocks
-    are 128 wide — the VPU lane dim — so a tiny scene pads 36 -> 128 rather
-    than 36 -> 512."""
+    for the single winning triangle afterwards (see recompute_hit). Blocks
+    are 128 wide, so a tiny scene pads 36 -> 128."""
     R = ray.origin.shape[0]
     tp0, te1, te2 = _pad_tris(tri_p0, tri_e1, tri_e2, block)
     nb = tp0.shape[0] // block
@@ -139,8 +145,7 @@ def intersect_brute(ray, tri_p0, tri_e1, tri_e2, block=128):
     else:
         bases = (jnp.arange(nb) * block).astype(jnp.int32)
         (t, pid), _ = jax.lax.scan(body, init, (p0b, e1b, e2b, bases))
-    uv = recompute_bary(ray, Hit(t=t, prim_id=pid, bary=None), tp0, te1, te2)
-    return Hit(t=t, prim_id=pid, bary=uv)
+    return recompute_hit(ray, pid, tp0, te1, te2).replace(t=t)
 
 
 def occluded_brute(ray, tri_p0, tri_e1, tri_e2, block=128):
@@ -171,7 +176,9 @@ def intersect_bvh(ray, bvh, any_hit=False, max_steps=10000):
     """Stackless skip-link traversal; all lanes step in lock-step.
 
     Each iteration: gather current node AABB, slab test; on hit at a leaf,
-    test its LEAF_SIZE triangles; advance to child or skip link.
+    test its LEAF_SIZE triangles; advance to child or skip link. Returns
+    (Hit, truncated): lanes still walking after `max_steps` iterations keep
+    their best hit so far and are counted in `truncated` (int32 scalar).
     """
     R = ray.origin.shape[0]
     inv_d = jnp.where(jnp.abs(ray.direction) > 1e-12,
@@ -234,4 +241,87 @@ def intersect_bvh(ray, bvh, any_hit=False, max_steps=10000):
     state = (node0, ray.t_max, jnp.full((R,), -1, jnp.int32),
              jnp.zeros((R, 2)), jnp.zeros((R,), bool), jnp.asarray(0, jnp.int32))
     node, t, pid, uv, done, _ = jax.lax.while_loop(cond, body, state)
-    return Hit(t=t, prim_id=pid, bary=uv)
+    truncated = jnp.sum((node >= 0).astype(jnp.int32))
+    return Hit(t=t, prim_id=pid, bary=uv), truncated
+
+
+def choose_route(has_bvh, backend, has_sah=True, cuda_error=None):
+    """Traversal route for a scene. Without a BVH (at most
+    BRUTE_FORCE_MAX_TRIS triangles): 'triton' on the GPU, 'brute'
+    elsewhere. With one: 'cuda' on the GPU, 'bvh' elsewhere. On the GPU a
+    missing SAH tree or kernel library is an error, never a quiet switch
+    to the slower walk."""
+    if not has_bvh:
+        return "triton" if backend == "gpu" else "brute"
+    if backend != "gpu":
+        return "bvh"
+    if not has_sah:
+        from .. import native
+        raise RuntimeError("GPU traversal needs the native SAH builder: "
+                           f"{native.build_error}")
+    if cuda_error is not None:
+        raise RuntimeError(cuda_error)
+    return "cuda"
+
+
+def trace(scene, ray, any_hit=False, act=None):
+    """Closest hit (Hit) or occlusion (bool [R]) of `ray` against `scene`,
+    plus the number of lanes whose traversal was truncated. Lanes with
+    act == False are traced with t_max = 0 on the BVH routes, which skips
+    their walk."""
+    backend = jax.default_backend()
+    has_bvh = scene.bvh is not None
+    cuda_error = None
+    if has_bvh and backend == "gpu":
+        from . import cuda_trace
+        cuda_error = cuda_trace.load()
+    route = choose_route(has_bvh, backend, scene.sah is not None, cuda_error)
+
+    sg = jax.lax.stop_gradient
+    tmax = ray.t_max
+    sweep = route in ("brute", "triton")
+    if act is not None and not sweep:
+        tmax = jnp.where(act, tmax, 0.0)
+    r = Ray(origin=sg(ray.origin), direction=sg(ray.direction),
+            t_max=sg(tmax))
+    tris = (scene.tri_p0, scene.tri_e1, scene.tri_e2)
+    truncated = jnp.zeros((), jnp.int32)
+    if sweep:
+        def sweep_xla(r_):
+            if any_hit:
+                return occluded_brute(r_, *tris)
+            return intersect_brute(r_, *tris).prim_id
+
+        if route == "triton":
+            from .sweep_triton import sweep_triton
+
+            def sweep_gpu(r_):
+                _, out = sweep_triton(r_, *tris, any_hit=any_hit)
+                return out > 0 if any_hit else out
+
+            out = jax.lax.platform_dependent(r, cuda=sweep_gpu,
+                                             default=sweep_xla)
+        else:
+            out = sweep_xla(r)
+        if any_hit:
+            return out, truncated
+        pid = out
+    else:
+        def walk_xla(r_):
+            hit, n = intersect_bvh(r_, scene.bvh, any_hit=any_hit)
+            return hit.prim_id, n
+
+        if route == "cuda":
+            from .cuda_trace import intersect_cuda
+
+            def walk_cuda(r_):
+                _, pid_, n = intersect_cuda(r_, scene.sah, any_hit=any_hit)
+                return pid_, n
+
+            pid, truncated = jax.lax.platform_dependent(
+                r, cuda=walk_cuda, default=walk_xla)
+        else:
+            pid, truncated = walk_xla(r)
+    if any_hit:
+        return pid >= 0, truncated
+    return recompute_hit(ray, pid, *tris), truncated

@@ -22,7 +22,7 @@ query).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.math import safe_div
 

@@ -10,7 +10,7 @@ containing cell's surfel with a distance/normal kernel.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.math import safe_div
 from .sharc import _hash, _U32

@@ -13,12 +13,13 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser("vision-tpu",
-                                 description="TPU-native path tracer")
+                                 description="differentiable path tracer")
     ap.add_argument("-s", "--scene", required=True, help="scene JSON(C) file")
     ap.add_argument("-o", "--output", default=None, help="output image path")
     ap.add_argument("--spp", type=int, default=None, help="samples per pixel")
-    ap.add_argument("-d", "--device", default=None, choices=["cpu", "tpu"],
-                    help="force platform (default: best available)")
+    ap.add_argument("-d", "--device", default=None, choices=["cpu", "gpu"],
+                    help="cpu: run on the CPU; gpu: require a GPU and fail "
+                         "without one (default: best available)")
     ap.add_argument("--denoise", action="store_true",
                     help="apply the post denoiser before tonemap")
     ap.add_argument("-p", "--pipeline", default=None,
@@ -40,7 +41,7 @@ def main(argv=None):
                          "(ConvergenceInspector)")
     ap.add_argument("--distributed", action="store_true",
                     help="initialize the JAX multi-process runtime "
-                         "(multi-host pods; run one process per host)")
+                         "(multi-host; run one process per host)")
     ap.add_argument("-q", "--quiet", action="store_true")
     args = ap.parse_args(argv)
 
@@ -60,11 +61,14 @@ def main(argv=None):
             pass
     if args.device == "cpu":
         jax.config.update("jax_platforms", "cpu")
+    elif args.device == "gpu" and jax.devices()[0].platform != "gpu":
+        raise SystemExit(f"-d gpu: no GPU found (JAX devices: "
+                         f"{[d.platform for d in jax.devices()]})")
     if args.distributed:
         from .parallel import launch
         if not launch.init_distributed():
             # the user explicitly asked for multi-host: a silent single-host
-            # fallback would burn pod time rendering N duplicate images
+            # fallback would render N duplicate images
             raise SystemExit(
                 "--distributed: jax.distributed.initialize() failed "
                 "(check coordinator address / process env)")

@@ -1,42 +1,17 @@
-"""Fast small-table row fetches for TPU.
+"""Row fetches of several columns at once.
 
-XLA's TPU gather lowers to a serialized loop: a single [262k]-lane gather
-from even a 256-row table costs ~2 ms on v5e, and the shading path used to
-do 10-25 of them per bounce (material row, light row, triangle attributes).
-Two fixes, both exact:
-
-  * stack all columns a call site needs into ONE [N, K] matrix so one fetch
-    replaces K fetches;
-  * for small N, fetch via a bf16 one-hot matmul on the MXU
-    ([R, N] one-hot @ [N, K]): 0/1 are exact in bf16, each output element
-    accumulates exactly one nonzero product in f32, so results are
-    bit-identical to the gather.
-
-`fetch_rows` picks the strategy by table height.
+`fetch_rows` stacks all the columns a call site needs into ONE [N, K]
+matrix, so one gather of [..., K] rows replaces K separate gathers. On an
+H100 a plain gather of 262,144 rows from a [N, 32] table (N = 36, 256, 512)
+beats the one-hot matmul fetch at every N (PERF.md, Findings).
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-
-# one-hot traffic is R*N bytes (bf16); at 262k lanes a 512-row table is
-# ~270 MB/s-class traffic per fetch -- cheaper than 2+ serialized gathers,
-# but past ~1k rows the native gather wins
-MATMUL_MAX_ROWS = 512
-
-
-def gather_rows_matmul(table, idx):
-    """table [N, K] f32, idx [...] int -> [..., K] via one-hot matmul."""
-    n = table.shape[0]
-    oh = (idx[..., None] == jnp.arange(n, dtype=jnp.int32)).astype(jnp.bfloat16)
-    return jax.lax.dot_general(
-        oh, table.astype(jnp.float32),
-        dimension_numbers=(((oh.ndim - 1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
 
 
 def fetch_rows(cols, idx):
-    """Fetch row `idx` from each column array in `cols` with one fused fetch.
+    """Fetch row `idx` from each column array in `cols` with one gather.
 
     cols: list of [N] or [N, k] arrays (float/int mixed; ints must fit f32
     exactly, i.e. |v| < 2^24 -- true for every id/flag table here).
@@ -48,12 +23,7 @@ def fetch_rows(cols, idx):
         c2 = c[:, None] if c.ndim == 1 else c
         parts.append(c2.astype(jnp.float32))
         metas.append((c.ndim, c.dtype, c2.shape[1]))
-    stacked = jnp.concatenate(parts, axis=-1)
-    n = stacked.shape[0]
-    if n <= MATMUL_MAX_ROWS:
-        rows = gather_rows_matmul(stacked, idx)
-    else:
-        rows = stacked[idx]
+    rows = jnp.concatenate(parts, axis=-1)[idx]
     out, o = [], 0
     for ndim, dtype, w in metas:
         r = rows[..., o:o + w]

@@ -1,6 +1,6 @@
 """Core SoA pytree types carried through the wavefront loop.
 
-TPU-native replacements for the reference DSL structs: `RayVar`/`TriangleHit`
+Replacements for the reference DSL structs: `RayVar`/`TriangleHit`
 (`/root/reference/src/base/mgr/geometry.cpp`), `Interaction`
 (`/root/reference/src/base/scattering/interaction.h:182-260`) and
 `RayState` (`sample.h:48-60`). Every field is an array with a shared leading
@@ -9,7 +9,7 @@ wavefront axis; jax transforms (jit/grad/shard_map) treat them as pytrees.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from . import struct
 
 
 @struct.dataclass
@@ -34,11 +34,6 @@ class Hit:
     t: jnp.ndarray        # [...] hit distance (t_max if miss)
     prim_id: jnp.ndarray  # [...] int32 triangle index (-1 = miss)
     bary: jnp.ndarray     # [..., 2] barycentric (b1, b2)
-    # instance id, filled only by the instanced (TLAS) traversal where
-    # prim_id is an OBJECT-space mesh triangle shared across instances;
-    # None on the flat path (prim_id is the world triangle, which encodes
-    # the instance via tri_pack)
-    inst: jnp.ndarray = None
 
     @property
     def is_miss(self):

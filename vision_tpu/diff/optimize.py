@@ -22,7 +22,8 @@ from ..integrator import pt
 
 
 def float_leaves(table):
-    """Dict of the float-valued arrays of a flax struct (grad surface)."""
+    """Dict of the float-valued arrays of a struct dataclass (grad
+    surface)."""
     return {k: v for k, v in vars(table).items()
             if hasattr(v, "dtype") and jnp.issubdtype(v.dtype, jnp.floating)}
 

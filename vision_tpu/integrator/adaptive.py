@@ -11,7 +11,7 @@ pixels).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.math import luminance, safe_div
 

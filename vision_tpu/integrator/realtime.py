@@ -12,7 +12,7 @@ functional analog of the reference's persistent device buffers.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..caches import sharc as sharc_mod
 from ..core import rng

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core import rng
 from ..core.math import (coordinate_system, dot, luminance, normalize,

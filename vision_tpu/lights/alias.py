@@ -41,7 +41,7 @@ def build_alias(weights):
     return prob.astype(np.float32), alias.astype(np.int32), pmf.astype(np.float32)
 
 
-from ..core.gather import gather_rows_matmul, fetch_rows  # noqa: E402 (re-export)
+from ..core.gather import fetch_rows  # noqa: E402
 
 
 def sample_alias(prob, alias, pmf, u, offset=0, count=None):
@@ -49,8 +49,7 @@ def sample_alias(prob, alias, pmf, u, offset=0, count=None):
     u [...] in [0,1). Returns (index_in_subtable, pmf_value, u_remapped).
 
     Row fetches go through core.gather.fetch_rows: one fused fetch for
-    (prob, alias, pmf@i) + one for pmf@idx — small tables ride the MXU
-    one-hot path instead of 3 serialized TPU gathers."""
+    (prob, alias, pmf@i) + one for pmf@idx instead of 4 gathers."""
     n = count if count is not None else prob.shape[0]
     x = u * n
     i = jnp.clip(x.astype(jnp.int32), 0, n - 1)

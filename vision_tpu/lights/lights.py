@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.math import (Inv2Pi, InvPi, Pi, TwoPi, dot, length_squared,
                          normalize, safe_div, safe_sqrt, spherical_phi,
@@ -198,8 +198,8 @@ def sample_wi(table, atlas, tri_pack, ref_pos, ref_ng, u_sel, u2,
     rows (p0 e1 e2 ... uv0 uv1 uv2) for area lights. Returns LightSample;
     L is [..., S] (spectral under a hero SpectrumModel)."""
     lid, sel_pmf, u_sel2 = select_light(table, u_sel)
-    # one fused row fetch for every per-light column used below (the
-    # serialized-gather fix: see core/gather.py)
+    # one fused row fetch for every per-light column used below
+    # (core/gather.py)
     (lt, color, l_ctex, l_pos, l_dir, l_cosang, l_cosfall, l_tanxy, l_w2o,
      l_two, l_area_tot, l_toff, l_tcnt, l_tbase) = fetch_rows(
         [table.ltype, table.color, table.color_tex, table.position,

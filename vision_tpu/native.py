@@ -1,8 +1,11 @@
-"""ctypes bindings for the native host runtime (native/libvision_native.so).
+"""ctypes bindings for the native host runtime (native/build/libvision_native.so).
 
-Provides fast OBJ parsing and Morton sorting with transparent fallback to
-the pure-Python implementations when the library isn't built. Build with
-`make -C native` (auto-attempted on first import).
+Provides fast OBJ parsing, Morton sorting and the binned-SAH BVH build. The
+library is built from native/*.cpp by `make -C native` on first use (make
+rebuilds it when a source is newer). Without a C++ compiler the OBJ loader
+falls back to the Python parser (same mesh), and `build_bvh_native` returns
+None: GPU traversal then refuses to run (accel/cuda_trace.py) instead of
+silently walking another tree.
 """
 from __future__ import annotations
 
@@ -12,9 +15,10 @@ import subprocess
 
 import numpy as np
 
-_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
-_LIB_PATH = os.path.join(_DIR, "libvision_native.so")
+_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "native")
+_LIB_PATH = os.path.join(_DIR, "build", "libvision_native.so")
 _lib = None
+build_error = None   # why the library could not be built, if it could not
 
 
 class _MeshBlob(ctypes.Structure):
@@ -28,28 +32,36 @@ class _MeshBlob(ctypes.Structure):
     ]
 
 
+def make(target="all", timeout=120, **variables):
+    """Run `make -C native <target> [NAME=value ...]`; raises RuntimeError
+    with the compiler's output on failure."""
+    args = [f"{k}={v}" for k, v in variables.items()]
+    try:
+        subprocess.run(["make", "-C", _DIR, target, *args], check=True,
+                       capture_output=True, text=True, timeout=timeout)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"make -C native {target} failed:\n"
+                           f"{e.stdout}\n{e.stderr}") from e
+
+
 def _load():
-    global _lib
+    global _lib, build_error
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            _lib = False
-            return False
     try:
+        make()
         lib = ctypes.CDLL(_LIB_PATH)
-        lib.vt_load_obj.argtypes = [ctypes.c_char_p, ctypes.POINTER(_MeshBlob)]
-        lib.vt_load_obj.restype = ctypes.c_int32
-        lib.vt_free_mesh.argtypes = [ctypes.POINTER(_MeshBlob)]
-        lib.vt_morton_sort.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32)]
-        _lib = lib
-    except OSError:
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        build_error = str(e)
         _lib = False
+        return False
+    lib.vt_load_obj.argtypes = [ctypes.c_char_p, ctypes.POINTER(_MeshBlob)]
+    lib.vt_load_obj.restype = ctypes.c_int32
+    lib.vt_free_mesh.argtypes = [ctypes.POINTER(_MeshBlob)]
+    lib.vt_morton_sort.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32)]
+    _lib = lib
     return _lib
 
 
@@ -128,46 +140,6 @@ def build_bvh_native(p0, p1, p2, max_leaf=4):
     if nn <= 0:
         return None
     return dict(lo=lo[:nn].copy(), hi=hi[:nn].copy(),
-                first=first[:nn].copy(), count=count[:nn].copy(),
-                skip=skip[:nn].copy(), axis=axis[:nn].copy(),
-                order=order[:n].copy())
-
-
-def build_bvh_boxes_native(lo, hi, max_leaf=1):
-    """Binned-SAH BVH over precomputed AABBs (TLAS over instance bounds).
-    Same output layout as build_bvh_native; `order` permutes box ids."""
-    lib = _load()
-    if not lib:
-        return None
-    if not hasattr(lib, "_bvhb_bound"):
-        F = ctypes.POINTER(ctypes.c_float)
-        I = ctypes.POINTER(ctypes.c_int32)
-        lib.vt_build_bvh_boxes.argtypes = [F, F, ctypes.c_int64,
-                                           ctypes.c_int32, F, F, I, I, I, I, I]
-        lib.vt_build_bvh_boxes.restype = ctypes.c_int64
-        lib._bvhb_bound = True
-    alo = np.ascontiguousarray(lo, np.float32)
-    ahi = np.ascontiguousarray(hi, np.float32)
-    n = len(alo)
-    cap = max(2 * n, 2)
-    olo = np.empty((cap, 3), np.float32)
-    ohi = np.empty((cap, 3), np.float32)
-    first = np.empty(cap, np.int32)
-    count = np.empty(cap, np.int32)
-    skip = np.empty(cap, np.int32)
-    axis = np.empty(cap, np.int32)
-    order = np.empty(max(n, 1), np.int32)
-    F = ctypes.POINTER(ctypes.c_float)
-    I = ctypes.POINTER(ctypes.c_int32)
-    nn = lib.vt_build_bvh_boxes(
-        alo.ctypes.data_as(F), ahi.ctypes.data_as(F), n, max_leaf,
-        olo.ctypes.data_as(F), ohi.ctypes.data_as(F),
-        first.ctypes.data_as(I), count.ctypes.data_as(I),
-        skip.ctypes.data_as(I), order.ctypes.data_as(I),
-        axis.ctypes.data_as(I))
-    if nn <= 0:
-        return None
-    return dict(lo=olo[:nn].copy(), hi=ohi[:nn].copy(),
                 first=first[:nn].copy(), count=count[:nn].copy(),
                 skip=skip[:nn].copy(), axis=axis[:nn].copy(),
                 order=order[:n].copy())

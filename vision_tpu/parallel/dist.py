@@ -2,9 +2,10 @@
 
 New capability vs the single-GPU reference (SURVEY.md §2.5): the pixel grid
 is sharded over a `dp` mesh axis and samples over an `sp` axis; the scene
-pytree is replicated (read-only during a frame). Sample averaging is a psum
-over `sp` riding ICI. Design follows the scaling-book recipe: pick a mesh,
-annotate shardings, let XLA insert collectives.
+pytree is replicated (read-only during a frame). Sample averaging is a pmean
+over `sp`. The cards of a host are joined all to all (NVLink), so the mesh
+follows the algorithm alone: pick a mesh, annotate shardings, let XLA
+insert collectives (NCCL).
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ def render_sharded(scene, camera, filt, frame_index, mesh, max_depth=8,
         ray = camera_.generate_ray(p_film, u_lens)
         L, _ = pt.radiance(scene_, ray, st, max_depth, min_depth, rr_threshold)
         L = L * fw[..., None]
-        # average the sp sample sets over ICI
+        # average the sp sample sets
         L = jax.lax.pmean(L, "sp")
         return L
 
@@ -79,8 +80,8 @@ def training_step(scene, camera, filt, frame_index, mesh, target,
 
     This is the renderer-shaped 'training step' (inverse rendering): the
     backward sweep re-traverses the wavefront; parameter grads are
-    all-reduced over ICI. spp_local: samples averaged per chip before the
-    loss (variance reduction at fixed step count).
+    all-reduced over the mesh. spp_local: samples averaged per device
+    before the loss (variance reduction at fixed step count).
     """
     from ..diff.optimize import apply_params, param_surface
     W, H = camera.resolution

@@ -1,15 +1,19 @@
 """Multi-host launch scaffold + scaling measurement.
 
 New capability vs the single-GPU reference (SURVEY.md §2.5): standard JAX
-multi-process runtime over DCN. Each host runs the same program; devices
-combine into one global mesh; the renderer's shard_map code is unchanged
-(collectives ride ICI within a slice, DCN across hosts).
+multi-process runtime. Each host runs the same program; devices combine
+into one global mesh; the renderer's shard_map code is unchanged
+(collectives ride NVLink within a host, the network across hosts).
 
 Usage (per host):
     from vision_tpu.parallel import launch
-    launch.init_distributed()              # env-driven (TPU pods), or
     launch.init_distributed("10.0.0.1:8476", num_processes=2, process_id=i)
+    launch.init_distributed()              # or: cluster auto-detection
+                                           # (SLURM, Open MPI, ...)
     mesh = dist.make_mesh()                # global devices
+
+One process drives all the GPUs of a host; a single-host run needs no
+initialization at all.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ def init_distributed(coordinator_address=None, num_processes=None,
         pass
     try:
         if coordinator_address is None:
-            jax.distributed.initialize()  # TPU pod: env/metadata driven
+            jax.distributed.initialize()  # cluster auto-detection
         else:
             jax.distributed.initialize(
                 coordinator_address=coordinator_address,

@@ -38,9 +38,8 @@ def _wave_pass(scene_data, camera, filt, frame0, spp, max_depth, min_depth,
 
 # samples folded into one on-device regeneration wavefront per host step;
 # bounds while-loop length (and recompiles) while keeping lanes ~100% busy.
-# BVH scenes take a smaller chunk: a single launch that runs for minutes
-# (packet traversal at ~1 Mrays/s on a 262k-tri scene at 512^2) trips the
-# TPU watchdog with a device fault, so keep each launch well under a minute
+# BVH scenes take a smaller chunk so progress reports stay frequent. Neither
+# size has been measured on the GPU yet.
 WAVE_CHUNK = 32
 WAVE_CHUNK_BVH = 8
 

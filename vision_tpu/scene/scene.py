@@ -2,7 +2,8 @@
 
 Replaces `/root/reference/src/base/mgr/scene.{h,cpp}` + `geometry.cpp`:
 instead of per-instance device buffers + BLAS/TLAS, everything flattens to
-world-space triangle soup (SoA) + id tables at load time. Load order mirrors
+world-space triangle soup (SoA) + id tables at load time; a mesh used by
+several shapes is loaded once and placed once per shape. Load order mirrors
 Scene::init (scene.cpp:16-34): light_sampler -> spectrum -> materials ->
 sensor -> shapes (+ area-light emissions) -> integrator -> sampler.
 """
@@ -12,7 +13,7 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core import transform as xf
 from ..shading.materials import MaterialCompiler
@@ -20,6 +21,7 @@ from ..lights.lights import LightBuilder
 from ..sensor.camera import Camera
 from ..sensor.filters import FilterSampler
 from ..accel.bvh import build_bvh
+from ..accel.sah import build_sah
 from . import desc as dsc
 from . import shapes as shp
 from .texture import AtlasBuilder
@@ -29,7 +31,7 @@ BRUTE_FORCE_MAX_TRIS = 2048
 
 @struct.dataclass
 class SceneData:
-    """Everything the kernels need, as one pytree (replicated across chips)."""
+    """Everything the kernels need, as one pytree (replicated across devices)."""
     # geometry (world space)
     tri_p0: jnp.ndarray    # [T, 3]
     tri_e1: jnp.ndarray    # [T, 3]
@@ -52,22 +54,13 @@ class SceneData:
     camera_medium: int = struct.field(pytree_node=False)
     lights: object         # LightTable
     atlas: object          # TextureAtlas
-    bvh: object            # BVH or None (XLA skip-link walk; CPU fallback)
-    pbvh: object           # PacketBVH or None (Pallas packet; TPU product)
+    bvh: object            # BVH or None (XLA skip-link walk; CPU route)
+    sah: object            # SahBVH or None (GPU traversal kernel route)
     spectrum: object       # SpectrumModel
     world_radius: jnp.ndarray
     # render_setting.ray_offset_factor (node_desc.cpp:375); spawn offsets are
     # position-magnitude-scaled and multiplied by this
     ray_offset: jnp.ndarray = None
-    # scene AABB for wavefront re-binning keys (pt._rebin_perm)
-    world_lo: jnp.ndarray = None        # [3]
-    world_inv_extent: jnp.ndarray = None  # [3] 1/max(extent, eps)
-    # instanced (TLAS/BLAS) geometry: present when mesh dedup triggered.
-    # tri_pack rows are then [dedup meshes (OBJECT space)][residual (world)]
-    # and hits carry a TLAS instance id (Hit.inst).
-    ipbvh: object = None               # InstancedPBVH or None
-    inst_scene: jnp.ndarray = None     # [It] TLAS inst -> scene inst (-1=residual)
-    inst_xform: jnp.ndarray = None     # [It, 32] o2w linear(9) t(3) nrm(9)
 
 
 class Scene:
@@ -120,11 +113,10 @@ class Scene:
 
         # ---- shapes: load meshes (hash-dedup registry) ----
         # Mirrors the reference MeshRegistry (`mgr/mesh_registry.h:12-38`):
-        # identical geometry loads once; repeated HEAVY meshes become TLAS
-        # instances over one object-space BLAS (shape.h:21-33 o2w), light
-        # ones flatten into the world-space residual soup as before.
+        # identical geometry loads once; every shape then places its own
+        # world-space copy in the flat soup (shape.h:21-33 o2w).
         self._inst_media = []
-        raw_parts = []  # (mesh_obj, o2w, inst_id, geo_key, emission|None)
+        raw_parts = []  # (mesh_obj, o2w, inst_id, emission|None)
         inst_mat, inst_light = [], []
         mesh_cache = {}
         for sdesc in raw.get("shapes", []):
@@ -160,44 +152,12 @@ class Scene:
             if sss is not None and inside < 0:
                 inside = self._obtain_sss_medium(mid, sss)
             self._inst_media.append((inside, outside))
-            raw_parts.append((mesh, m, inst_id, key, p.get("emission")))
+            raw_parts.append((mesh, m, inst_id, p.get("emission")))
 
-        # ---- instancing layout decision ----
-        # meshes used >= 2x whose duplication would cost > threshold tris
-        # keep ONE object-space copy; everything else (emissives, one-offs,
-        # area-light quads added later) flattens to the world-space
-        # residual. Global tri numbering: [dedup meshes][residual parts],
-        # so later-added parts extend the residual naturally.
-        import os as _os
-        from collections import Counter
-        counts = Counter(k for (_, _, _, k, em) in raw_parts
-                         if k is not None and em is None)
-        dedup_keys = set()
-        if _os.environ.get("VT_INSTANCING", "1") != "0":
-            for k, c in counts.items():
-                nt = mesh_cache[k].num_triangles
-                # dedup only when it saves real memory AND the mesh is
-                # heavy enough that a TLAS entry beats flat bricks (tiny
-                # repeated quads flatten: per-instance entry overhead in
-                # the walk would dominate their 2-triangle sweeps)
-                if c >= 2 and nt >= 64 and (c - 1) * nt >= 1024:
-                    dedup_keys.add(k)
-        self._dedup_meshes = []          # object-space TriMesh per unique
-        self._dedup_instances = []       # (mesh_idx, o2w, scene_inst_id)
-        key_to_midx = {}
-        for (mesh, m, inst_id, key, emission) in raw_parts:
-            if key in dedup_keys and emission is None:
-                if key not in key_to_midx:
-                    key_to_midx[key] = len(self._dedup_meshes)
-                    self._dedup_meshes.append(mesh)
-                self._dedup_instances.append((key_to_midx[key], m, inst_id))
-        dedup_total = sum(m_.num_triangles for m_ in self._dedup_meshes)
-        mesh_parts = []                  # residual: (TriMesh world, inst_id)
+        mesh_parts = []                  # (TriMesh world, inst_id)
         pending_emissions = []           # (inst_id, edesc, tri_base, areas)
-        res_base = 0
-        for (mesh, m, inst_id, key, emission) in raw_parts:
-            if key in dedup_keys and emission is None:
-                continue
+        tri_base = 0
+        for (mesh, m, inst_id, emission) in raw_parts:
             world = mesh.transformed(m)
             mesh_parts.append((world, inst_id))
             if emission is not None:
@@ -205,12 +165,8 @@ class Scene:
                               for k in range(3))
                 areas = 0.5 * np.linalg.norm(np.cross(t1 - t0, t2 - t0),
                                              axis=-1)
-                pending_emissions.append((inst_id, emission,
-                                          dedup_total + res_base, areas))
-            res_base += world.num_triangles
-        # dedup meshes occupy [0, dedup_total); lights added later index
-        # residual tris with this offset (see _add_light)
-        self._tri_base_offset = dedup_total
+                pending_emissions.append((inst_id, emission, tri_base, areas))
+            tri_base += world.num_triangles
 
         # ---- lights ----
         for ldesc in (raw.get("light_sampler", {}).get("param", {})
@@ -429,8 +385,7 @@ class Scene:
             inst_mat.append(-1)
             inst_light.append(-1)
             self._inst_media.append((-1, self.global_medium))
-            tri_base = (self._tri_base_offset
-                        + sum(m.num_triangles for m, _ in mesh_parts))
+            tri_base = sum(m.num_triangles for m, _ in mesh_parts)
             mesh_parts.append((world, inst_id))
             t0, t1, t2 = (world.positions[world.triangles[:, k]] for k in range(3))
             areas = 0.5 * np.linalg.norm(np.cross(t1 - t0, t2 - t0), axis=-1)
@@ -529,7 +484,7 @@ class Scene:
     def _pack_rows(p0, e1, e2, n0, n1, n2, uv0, uv1, uv2, inst=None,
                    mat=None, light=None):
         """Packed per-triangle attribute rows: one gather per hit instead
-        of ~12 separate [T, 3] gathers (measured 25 ms/bounce at 512^2)."""
+        of ~12 separate [T, 3] gathers."""
         n = max(len(p0), 1)
         tp = np.zeros((n, 32), np.float32)
         if len(p0):
@@ -548,162 +503,33 @@ class Scene:
                 tp[:, 26] = light.astype(np.float32)
         return tp
 
-    def _expand_instances_into_soup(self):
-        """Fallback when the native builder is unavailable: materialize
-        every dedup instance as world-space triangles appended to the
-        residual soup, preserving the [dedup][residual] global numbering
-        (dedup meshes keep their slots, transformed per FIRST instance;
-        extra instances append)."""
-        t = self.tri_arrays
-        # numbering must stay [dedup mesh slots][residual]: the FIRST
-        # instance of each mesh fills the mesh's dedup slot range (so
-        # object-tri ids stay valid), EXTRA instances append AFTER the
-        # residual (light tri_base offsets reference residual positions
-        # at dedup_total + offset and must not shift)
-        first_done = set()
-        firsts, extras = [], []
-        for (mi, m, sid) in self._dedup_instances:
-            (firsts if mi not in first_done else extras).append((mi, m, sid))
-            first_done.add(mi)
-        firsts.sort(key=lambda x: x[0])
-
-        def emit(insts):
-            cols = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2",
-                                    "uv0", "uv1", "uv2", "inst")}
-            for (mi, m, sid) in insts:
-                world = self._dedup_meshes[mi].transformed(m)
-                tr = world.triangles
-                P = world.positions
-                p0, p1, p2 = P[tr[:, 0]], P[tr[:, 1]], P[tr[:, 2]]
-                cols["p0"].append(p0)
-                cols["e1"].append(p1 - p0)
-                cols["e2"].append(p2 - p0)
-                cols["n0"].append(world.normals[tr[:, 0]])
-                cols["n1"].append(world.normals[tr[:, 1]])
-                cols["n2"].append(world.normals[tr[:, 2]])
-                cols["uv0"].append(world.uvs[tr[:, 0]])
-                cols["uv1"].append(world.uvs[tr[:, 1]])
-                cols["uv2"].append(world.uvs[tr[:, 2]])
-                cols["inst"].append(np.full(len(tr), sid, np.int32))
-            return cols
-
-        pre = emit(firsts)
-        post = emit(extras)
-        for k in pre:
-            arrs = pre[k] + ([t[k]] if len(t[k]) else []) + post[k]
-            self.tri_arrays[k] = (np.concatenate(arrs, 0)
-                                  if arrs else t[k])
-        self._dedup_meshes = []
-        self._dedup_instances = []
-
-    def _build_instanced(self):
-        """TLAS/BLAS device build (mesh dedup active): unique meshes store
-        object-space bricks + attribute rows once; the residual world soup
-        rides along as one identity-transform instance (its rows keep the
-        per-tri inst/mat/light ids, so emissive/area-light triangles work
-        unchanged). Returns None when the native builder is absent."""
-        from ..accel.packet_bvh import build_instanced_pbvh
-        t = self.tri_arrays
-        meshes = []
-        packs = []
-        for mesh in self._dedup_meshes:
-            tr = mesh.triangles
-            P = mesh.positions
-            p0, p1, p2 = P[tr[:, 0]], P[tr[:, 1]], P[tr[:, 2]]
-            meshes.append((p0, p1, p2))
-            packs.append(self._pack_rows(
-                p0, p1 - p0, p2 - p0,
-                mesh.normals[tr[:, 0]], mesh.normals[tr[:, 1]],
-                mesh.normals[tr[:, 2]],
-                mesh.uvs[tr[:, 0]], mesh.uvs[tr[:, 1]], mesh.uvs[tr[:, 2]]))
-        # residual soup as the last "mesh" (identity instance)
-        meshes.append((t["p0"], t["p0"] + t["e1"], t["p0"] + t["e2"]))
-        packs.append(self._pack_rows(
-            t["p0"], t["e1"], t["e2"], t["n0"], t["n1"], t["n2"],
-            t["uv0"], t["uv1"], t["uv2"], t["inst"],
-            self.inst_mat[t["inst"]] if len(t["p0"]) else np.zeros(0),
-            self.inst_light[t["inst"]] if len(t["p0"]) else np.zeros(0)))
-        # scene transforms are math/column convention (from_json
-        # transposes); the packet builder wants row-vector form
-        insts = ([(mi, np.asarray(m, np.float64).T)
-                  for (mi, m, _) in self._dedup_instances]
-                 + [(len(self._dedup_meshes), np.eye(4))])
-        ip = build_instanced_pbvh(meshes, insts)
-        if ip is None:
-            return None
-        inst_scene = np.array([sid for (_, _, sid) in self._dedup_instances]
-                              + [-1], np.int32)
-        xf_rows = np.zeros((len(insts), 32), np.float32)
-        for i, (_, m) in enumerate(insts):
-            # insts are already row-vector convention here
-            L = np.asarray(m, np.float64)[:3, :3]
-            xf_rows[i, 0:9] = L.reshape(-1)
-            xf_rows[i, 9:12] = np.asarray(m, np.float64)[3, :3]
-            # row-vector normal matrix: n_world = n_obj @ inv(L).T
-            xf_rows[i, 12:21] = np.linalg.inv(L).T.reshape(-1)
-        tri_pack = np.concatenate(packs, 0).astype(np.float32)
-        # world bounds: residual verts + transformed dedup bbox corners
-        pts = [t["p0"], t["p0"] + t["e1"], t["p0"] + t["e2"]]
-        for (mi, m, _) in self._dedup_instances:
-            P = self._dedup_meshes[mi].positions
-            lo, hi = P.min(0), P.max(0)
-            cs = np.array([[x, y, z] for x in (lo[0], hi[0])
-                           for y in (lo[1], hi[1]) for z in (lo[2], hi[2])])
-            mm = np.asarray(m, np.float64).T  # column -> row convention
-            pts.append((cs @ mm[:3, :3] + mm[3, :3]).astype(np.float32))
-        return ip, inst_scene, xf_rows, tri_pack, np.concatenate(pts, 0)
-
     def _build_device_geometry(self):
         t = self.tri_arrays
         n_tris = len(t["p0"])
         bvh = None
-        pbvh = None
-        ipbvh = None
-        inst_scene = None
-        inst_xform = None
-        built = self._build_instanced() if self._dedup_meshes else None
-        if built is not None:
-            ipbvh, inst_scene, inst_xform, tri_pack, p_all = built
-            inst_scene = jnp.asarray(inst_scene)
-            inst_xform = jnp.asarray(inst_xform)
-            self.use_bvh = True
-        else:
-            if self._dedup_meshes:
-                # native builder unavailable: materialize the instances
-                # back into the world soup and take the flat path
-                self._expand_instances_into_soup()
-                t = self.tri_arrays
-                n_tris = len(t["p0"])
-            self.use_bvh = n_tris > BRUTE_FORCE_MAX_TRIS
-            if self.use_bvh:
-                # product path: SAH packet BVH (Pallas dense-brick
-                # traversal). The XLA skip-link walk stays as the CPU/test
-                # fallback and for hosts without the native builder.
-                from ..accel.packet_bvh import build_packet_bvh
-                pbvh = build_packet_bvh(t["p0"], t["p0"] + t["e1"],
-                                        t["p0"] + t["e2"])
-                tris = np.arange(n_tris * 3,
-                                 dtype=np.int64).reshape(n_tris, 3)
-                verts = np.stack([t["p0"], t["p0"] + t["e1"],
-                                  t["p0"] + t["e2"]], axis=1).reshape(-1, 3)
-                bvh = build_bvh(verts, tris)
-            tri_pack = self._pack_rows(
-                t["p0"], t["e1"], t["e2"], t["n0"], t["n1"], t["n2"],
-                t["uv0"], t["uv1"], t["uv2"], t["inst"],
-                self.inst_mat[t["inst"]] if len(t["p0"]) else np.zeros(0),
-                self.inst_light[t["inst"]] if len(t["p0"]) else np.zeros(0))
-            p_all = np.concatenate([t["p0"], t["p0"] + t["e1"],
-                                    t["p0"] + t["e2"]], 0)
+        sah = None
+        self.use_bvh = n_tris > BRUTE_FORCE_MAX_TRIS
+        if self.use_bvh:
+            # two trees over the same triangles: the Morton LBVH for the
+            # XLA walk (CPU) and the binned-SAH tree for the GPU kernel
+            sah = build_sah(t["p0"], t["e1"], t["e2"])
+            tris = np.arange(n_tris * 3, dtype=np.int64).reshape(n_tris, 3)
+            verts = np.stack([t["p0"], t["p0"] + t["e1"],
+                              t["p0"] + t["e2"]], axis=1).reshape(-1, 3)
+            bvh = build_bvh(verts, tris)
+        tri_pack = self._pack_rows(
+            t["p0"], t["e1"], t["e2"], t["n0"], t["n1"], t["n2"],
+            t["uv0"], t["uv1"], t["uv2"], t["inst"],
+            self.inst_mat[t["inst"]] if len(t["p0"]) else np.zeros(0),
+            self.inst_light[t["inst"]] if len(t["p0"]) else np.zeros(0))
+        p_all = np.concatenate([t["p0"], t["p0"] + t["e1"],
+                                t["p0"] + t["e2"]], 0)
 
         if len(p_all):
             center = 0.5 * (p_all.min(0) + p_all.max(0))
             radius = float(np.linalg.norm(p_all - center, axis=-1).max())
-            w_lo = p_all.min(0).astype(np.float32)
-            w_ext = np.maximum(p_all.max(0) - w_lo, 1e-6).astype(np.float32)
         else:
             radius = 1.0
-            w_lo = np.zeros(3, np.float32)
-            w_ext = np.ones(3, np.float32)
 
         self.data = SceneData(
             tri_p0=jnp.asarray(t["p0"]), tri_e1=jnp.asarray(t["e1"]),
@@ -727,15 +553,10 @@ class Scene:
             lights=self.light_table,
             atlas=self.atlas,
             bvh=bvh,
-            pbvh=pbvh,
+            sah=sah,
             spectrum=self.spectrum,
             world_radius=jnp.asarray(max(radius, 1e-3), jnp.float32),
             ray_offset=jnp.asarray(self.ray_offset_factor, jnp.float32),
-            world_lo=jnp.asarray(w_lo),
-            world_inv_extent=jnp.asarray(1.0 / w_ext),
-            ipbvh=ipbvh,
-            inst_scene=inst_scene,
-            inst_xform=inst_xform,
         )
 
 

@@ -1,9 +1,9 @@
 """Texture atlas: all scene images packed into one flat device array.
 
-TPU-native replacement for the reference's bindless texture array
+Replacement for the reference's bindless texture array
 (`/root/reference/src/base/mgr/image_pool.h` + ocarina BindlessArray):
-no texture units / pointers on TPU, so every image becomes rows of a single
-[N, 4] float32 array plus an integer descriptor table. Bilinear sampling is
+every image becomes rows of a single [N, 3] float32 array plus an integer
+descriptor table. Bilinear sampling is
 4 gathers + lerp, fully vectorized over lanes.
 """
 from __future__ import annotations
@@ -12,18 +12,32 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 
 def _srgb_to_linear(x):
     return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
 
 
+def _optional(module, what):
+    """Import PIL or cv2 for formats the stdlib readers do not cover."""
+    import importlib
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        pkg = {"PIL": "Pillow", "cv2": "opencv-python"}[module]
+        raise ImportError(f"reading {what} needs the '{pkg}' package "
+                          f"(8-bit PNG and Radiance .hdr need nothing)") from e
+
+
 def load_image(path, color_space="srgb"):
     """Load LDR/HDR image -> float32 RGB [H, W, 3], linearized."""
+    from ..core import imageio
     ext = os.path.splitext(path)[1].lower()
-    if ext in (".hdr", ".exr"):
-        import cv2
+    if ext == ".hdr":
+        return imageio.read_hdr(path)
+    if ext == ".exr":
+        cv2 = _optional("cv2", "OpenEXR images")
         img = cv2.imread(path, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
         if img is None:
             raise IOError(f"cannot load {path}")
@@ -32,8 +46,19 @@ def load_image(path, color_space="srgb"):
             img = np.stack([img] * 3, -1)
         img = img[..., :3][..., ::-1]  # BGR -> RGB
         return np.ascontiguousarray(img)
-    from PIL import Image
-    img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    if ext == ".png":
+        try:
+            img = imageio.read_png(path)
+        except ValueError:              # 16-bit or interlaced: use PIL
+            img = None
+    else:
+        img = None
+    if img is None:
+        Image = _optional("PIL", f"'{ext}' images").Image
+        img = np.asarray(Image.open(path).convert("RGB"))
+    elif img.shape[-1] < 3:             # grey (+ alpha) -> RGB
+        img = np.repeat(img[..., :1], 3, -1)
+    img = img[..., :3].astype(np.float32) / 255.0
     if color_space == "srgb":
         img = _srgb_to_linear(img)
     return img.astype(np.float32)

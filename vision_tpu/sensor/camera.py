@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.math import normalize, vec3
 from ..core.types import Ray

@@ -33,13 +33,14 @@ def linear_to_srgb(x):
 
 
 def to_png(img, path):
-    from PIL import Image
+    """Display image in [0, 1] -> 8-bit PNG."""
+    from ..core.imageio import write_png
     arr = np.asarray(img)
-    arr = np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(arr).save(path)
+    write_png(path, np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8))
 
 
 def to_exr(img, path):
-    import cv2
+    from ..scene.texture import _optional
+    cv2 = _optional("cv2", "OpenEXR output")
     arr = np.asarray(img, np.float32)[..., ::-1]  # RGB -> BGR
     cv2.imwrite(path, arr)

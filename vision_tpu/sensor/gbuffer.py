@@ -9,7 +9,7 @@ prev_raster_coord). Consumed by ReSTIR (surface data) and SVGF (reprojection).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core import rng
 from ..core.math import coordinate_system, dot, normalize, to_local

@@ -18,7 +18,7 @@ grid^2-times-wider launch keeps the chip busier than grid^2 small ones.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from .camera import Camera
 

@@ -29,7 +29,7 @@ Reference parity notes:
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.math import (InvPi, Pi, abs_cos_theta, cos_theta, dot, lerp,
                          normalize, reflect, refract, safe_div, safe_sqrt,

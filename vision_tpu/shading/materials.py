@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..scene.desc import ParameterSet, parse_slot
 from ..spectra import spd
@@ -527,9 +527,8 @@ def gather_params(table, atlas, mat_id, uv, spectrum=None, swl=None,
 
     def _one(mid):
         """LobeParams + dispersive mask for one row-id array. All per-row
-        column reads are batched into ONE fused fetch (core/gather.py): the
-        25 separate [R]-gathers this used to issue were ~27 ms per bounce at
-        512^2 on v5e."""
+        column reads are batched into ONE fused fetch (core/gather.py)
+        instead of 25 separate [R]-gathers."""
         cols = [table.kd, table.kd_tex, table.spec_tint, table.spec_tex,
                 table.ax, table.ay, table.rough_tex, table.rough_remap,
                 table.dispersive_id, table.eta, table.eta3, table.k3,

@@ -14,7 +14,7 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core import rng, warp
 from ..core.math import (Inv4Pi, Pi, TwoPi, dot, normalize, safe_div, sqr,

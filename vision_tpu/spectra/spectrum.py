@@ -17,7 +17,7 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core import rng
 from ..core.math import safe_div, sqr
